@@ -41,7 +41,7 @@ def _abi_version(lib: ctypes.CDLL) -> int:
 def _build() -> Optional[ctypes.CDLL]:
     src = _HERE / "fastio.cpp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           str(src), "-o", str(_SO), "-lz", "-lzstd"]
+           str(src), "-o", str(_SO), "-lz", "-l:libzstd.so.1"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         return ctypes.CDLL(str(_SO))

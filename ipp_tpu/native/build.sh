@@ -3,5 +3,6 @@
 # import; this script exists for manual/CI builds).
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -std=c++17 -shared -fPIC -pthread fastio.cpp -o libfastio.so -lz -lzstd
+g++ -O3 -std=c++17 -shared -fPIC -pthread fastio.cpp -o libfastio.so -lz \
+    -l:libzstd.so.1
 echo "built $(pwd)/libfastio.so"

@@ -9,7 +9,8 @@
 // replacing LZ4 (zstd is what this image ships).
 //
 // Exposed as a C ABI consumed via ctypes (ipp_tpu/native/__init__.py).
-// Build: see ipp_tpu/native/build.sh (g++ -O3 -shared -fPIC ... -lz -lzstd).
+// Build: see ipp_tpu/native/build.sh (g++ -O3 -shared -fPIC ... -lz
+// -l:libzstd.so.1; the runtime soname, so no zstd dev package is needed).
 
 #include <atomic>
 #include <cstdint>
@@ -21,7 +22,20 @@
 #include <vector>
 
 #include <zlib.h>
+#if __has_include(<zstd.h>)
 #include <zstd.h>
+#else
+// zstd's stable one-shot API, declared here for hosts that ship the
+// runtime library (libzstd.so.1) without its development header
+extern "C" {
+size_t ZSTD_compressBound(size_t srcSize);
+size_t ZSTD_compress(void* dst, size_t dstCapacity, const void* src,
+                     size_t srcSize, int compressionLevel);
+size_t ZSTD_decompress(void* dst, size_t dstCapacity, const void* src,
+                       size_t compressedSize);
+unsigned ZSTD_isError(size_t code);
+}
+#endif
 
 namespace {
 

@@ -1,7 +1,7 @@
 """Intensity-domain tile operations: log-normalization, dark subtraction,
 flat-field division, bit-depth conversion, bleach correction.
 
-TPU-native equivalents of the reference's per-tile numpy/numexpr math:
+Device equivalents of the reference's per-tile numpy/numexpr math:
 
 - convert_to_8bit / 16bit: pystripe/core.py:397-424 (bit-shift with
   nonzero-below-LSB mapped to 1).

@@ -54,12 +54,9 @@ def local_percentile_1d(img: jnp.ndarray, size: int, percentile: float,
 def _band_slices(xp: jnp.ndarray, centers: np.ndarray, size: int,
                  step: int, k: int) -> jnp.ndarray:
     """Rows {c, c+step, ..., c+(k-1)*step} of xp for every center c,
-    concatenated along axis 0 -> (len(centers)*k, W).
-
-    TPU form: stride-`step` slicing per center measured 26 ms for the bg
-    field of one 2048^2 plane — the strided DMA re-runs per center.  One
-    row-wise jnp.take with a precomputed index vector is contiguous DMA
-    per row (~2.5 ms true cost; CLAUDE.md row-take rule)."""
+    concatenated along axis 0 -> (len(centers)*k, W): one row-wise
+    jnp.take with a precomputed index vector (contiguous rows) instead of
+    a strided slice per center."""
     idx = np.concatenate([np.arange(c, c + size, step)[:k]
                           for c in centers]).astype(np.int32)
     return jnp.take(xp, jnp.asarray(idx), axis=0)
@@ -72,9 +69,9 @@ def _kary_order_stats(p: jnp.ndarray, ranks, K: int = 16,
     count(p <= v) >= r, for each 1-indexed rank r in `ranks`.
 
     One pass reads p ONCE and evaluates K thresholds per rank (the
-    comparisons fuse into the read), narrowing the bracket K-fold — the
-    memory-traffic optimum between plain bisection (20 reads) and a sort
-    (pathological on TPU).  K=16 x 5 passes resolves range/2^20.
+    comparisons fuse into the read), narrowing the bracket K-fold, so
+    5 reads replace plain bisection's 20.  K=16 x 5 passes resolves
+    range/2^20.
     Returns (R, n_cx, n_cy)."""
     R = len(ranks)
     # extrema/brackets in f32 even for integer sample tensors (p itself
@@ -109,14 +106,11 @@ def _kary_order_stats(p: jnp.ndarray, ranks, K: int = 16,
 def _bisect_rank_axes(p: jnp.ndarray, rank: float,
                       iters: int = 11) -> jnp.ndarray:
     """Smallest sample value v with count(p <= v) >= rank over axes
-    (1, 3), by plain two-way bisection counting — measured FASTER than
-    any K>2 counting fan-out on TPU (the broadcast compare across K
-    thresholds does not fuse: K=16 measured 30.5 ms vs 14.9 ms for 20
-    two-way passes on the 2048^2 bg field).  11 passes resolve the
+    (1, 3), by plain two-way bisection counting.  11 passes resolve the
     bracket to range/2^11 (~32 intensity units at u16 full scale =
     4.9e-4 of range — inside the pipeline's 1e-3 output tolerance; each
     pass reads the full 64x-duplicated window sample tensor, so passes
-    are the unit of cost and set the ~6 ms/2048^2-plane floor)."""
+    are the unit of cost)."""
     lo = jnp.min(p, axis=(1, 3)).astype(jnp.float32)
     hi = jnp.max(p, axis=(1, 3)).astype(jnp.float32)
     lo = lo - 1e-3 * (hi - lo + 1.0)
@@ -180,13 +174,15 @@ def _resize_linear_weights(n_in: int, n_out: int) -> np.ndarray:
 
 
 def _resize_linear_mm(vals: jnp.ndarray, shape: Tuple[int, int]) -> jnp.ndarray:
-    """Linear 2D upsample of (..., i, j) as two dense matmuls (MXU) with
-    the scipy.ndimage.zoom(order=1) endpoint-aligned taps the reference
-    interpolates with (see _resize_linear_weights) — gather-based resizes
-    measured 8.6 ms for 81^2 -> 2048^2; the matmul form is sub-ms."""
+    """Linear 2D upsample of (..., i, j) as two dense matmuls with the
+    scipy.ndimage.zoom(order=1) endpoint-aligned taps the reference
+    interpolates with (see _resize_linear_weights), instead of the
+    gathers jax.image.resize lowers to.  Full float32 precision: a TF32
+    pass keeps 10 mantissa bits, ~32 counts at u16 full scale."""
     ay = jnp.asarray(_resize_linear_weights(vals.shape[-2], shape[0]))
     ax = jnp.asarray(_resize_linear_weights(vals.shape[-1], shape[1]))
-    return jnp.einsum("yi,...ij,xj->...yx", ay, vals, ax)
+    return jnp.einsum("yi,...ij,xj->...yx", ay, vals, ax,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @partial(jax.jit, static_argnames=("selem", "spacing", "step", "percentile"))
@@ -201,13 +197,11 @@ def grid_percentile(img: jnp.ndarray, selem: Tuple[int, int],
     border windows; with percentile statistics on smooth backgrounds the
     difference is below test tolerance) so everything stays static-shape.
 
-    TPU redesign of the extraction: a general 2D advanced-index gather of
-    the window samples measured 700 ms for one 2048^2 plane (XLA lowers
-    it element-wise); strided slices measured 26 ms (strided DMA per
-    center); one row-wise jnp.take with a precomputed index vector is
-    contiguous DMA per row (~2.5 ms).  The per-window percentile is
-    counting-based (bisection for large windows, interpolated dual-rank
-    K-ary for small ones) instead of a TPU sort."""
+    The window samples are extracted by one row-wise jnp.take with a
+    precomputed index vector (contiguous rows) rather than a general 2D
+    advanced-index gather.  The per-window percentile is counting-based
+    (bisection for large windows, interpolated dual-rank K-ary for small
+    ones) instead of a sort."""
     h, w = img.shape[-2], img.shape[-1]
     sh, sw = selem
     gy, gx = spacing
@@ -222,13 +216,13 @@ def grid_percentile(img: jnp.ndarray, selem: Tuple[int, int],
     B = int(np.prod(lead)) if lead else 1
 
     # batch folds into the row-take index vector (vmap would batch the
-    # gathers, which lowers pathologically on TPU); the percentile then
-    # treats (B * n_cy) as one grid axis.
+    # gathers into one general gather); the percentile then treats
+    # (B * n_cy) as one grid axis.
     # Integer inputs stay in their native width end-to-end: the counting
     # passes below re-read the duplicated window-sample tensor every
-    # pass, so u16 samples HALVE the HBM traffic of the whole bandwidth-
-    # bound field (measured 10.5 -> ~5 ms for the 2048^2 bg field); the
-    # compare upcasts in-register (u16 -> f32 is exact, same counts)
+    # pass, so u16 samples HALVE the memory traffic of the whole
+    # bandwidth-bound field; the compare upcasts in-register (u16 -> f32
+    # is exact, same counts)
     keep = jnp.issubdtype(img.dtype, jnp.integer)
     x3 = img.reshape((B, h, w))
     if not keep:
@@ -268,7 +262,7 @@ def correct_lightsheet(
 
     Jitted as ONE program: the two percentile-field extractions, the
     bisection passes and the final minimum fuse/overlap instead of
-    dispatching eagerly (measured 354 -> ~390 Mpix/s on a 2048^2 plane)."""
+    dispatching eagerly."""
     x = img.astype(jnp.float32)
     # the reference evaluates BOTH percentile fields on sparse grids and
     # zoom-interpolates (apply_local_function with spacing defaulting to

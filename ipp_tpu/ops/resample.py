@@ -1,6 +1,6 @@
 """Down/Up-sampling: block_reduce, anti-aliased resize, isotropic planning.
 
-TPU-native equivalents of the reference's skimage-based resampling:
+Device equivalents of the reference's skimage-based resampling:
 
 - block_reduce (skimage semantics: pad to a block multiple with zeros, then
   reduce) — used for tile downsampling (pystripe/core.py:1296-1302) and the

@@ -2,10 +2,11 @@
 
 The reference scales across nodes with mpi4py master-worker wrappers
 (TeraStitcher/pyscripts/Parastitcher.py:410-470, paraconverter.py) and
-shared-filesystem claim files (LsDeconv.m:697-706).  The TPU-native
-equivalent is single-controller JAX: every host runs the same program,
+shared-filesystem claim files (LsDeconv.m:697-706).  The JAX equivalent
+is single-controller: every host runs the same program,
 `jax.distributed.initialize` wires the coordinator, meshes span all
-global devices, and XLA collectives ride ICI/DCN.
+global devices, and XLA collectives ride NVLink within a host and the
+network between hosts.
 
 Helpers here keep the pipelines host-count agnostic:
 - `initialize()` — env-driven jax.distributed.initialize (no-op when

@@ -218,8 +218,8 @@ def run_tile_pipeline(
 
     # lagged fetch: batch k's result streams device->host
     # (copy_to_host_async) while batch k+1 uploads/dispatches — the same
-    # one-in-flight pipeline as the merge and decon loops; on a remote
-    # backend the two link directions overlap.  IPP_TPU_EXEC_ASYNC=0
+    # one-in-flight pipeline as the merge and decon loops, so the two
+    # transfer directions overlap.  IPP_TPU_EXEC_ASYNC=0
     # forces the serialized dispatch->fetch order (A/B lever; mirrors
     # IPP_TPU_MERGE_ASYNC).
     import os as _os

@@ -49,18 +49,14 @@ def sharded_map_blocks_z(fn, mesh: Mesh, halo: int, axis_name: str = "z"):
     wrapper returns the cropped (local_z, H, W) pieces reassembled as a
     global (Z, H, W) array sharded over `axis_name`.
     """
-    try:
-        from jax import shard_map  # jax >= 0.7 name
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
 
     def local_fn(block):
         ext = exchange_halos_z(block, halo, axis_name)
         out = fn(ext)
         return out[halo:out.shape[0] - halo]
 
-    from .mesh import shard_map_compat
+    from .mesh import shard_map_unchecked
 
-    return shard_map_compat(local_fn, mesh=mesh,
-                            in_specs=P(axis_name, None, None),
-                            out_specs=P(axis_name, None, None))
+    return shard_map_unchecked(local_fn, mesh=mesh,
+                               in_specs=P(axis_name, None, None),
+                               out_specs=P(axis_name, None, None))

@@ -33,8 +33,8 @@ def make_mesh(n_devices: Optional[int] = None,
 def default_mesh():
     """(mesh_or_None, plane_batch): the pipelines' shared policy — a
     ('data', 'z'=1) mesh when more than one device is visible, else no
-    mesh with a 4-plane dispatch batch (amortizes remote-backend dispatch
-    latency on a single device).  One home so process_images, tsv_tools
+    mesh with a 4-plane dispatch batch (amortizes per-dispatch overhead
+    on a single device).  One home so process_images, tsv_tools
     and future callers cannot drift apart."""
     if len(jax.devices()) > 1:
         return make_mesh(), 1
@@ -52,23 +52,12 @@ def block_sharding(mesh: Mesh, ndim: int) -> NamedSharding:
     return NamedSharding(mesh, P(*spec))
 
 
-def shard_map_compat(f, mesh, in_specs, out_specs):
-    """shard_map with varying-mesh-axes checking disabled: Pallas
-    pallas_call outputs carry no `vma` annotation, so newer JAX versions
-    reject kernels inside a checked shard_map (ValueError: vma ... must
-    not be None).  All our shard_maps are pure per-device data
-    parallelism, where the check adds nothing.  Falls back through the
-    historical keyword spellings."""
+def shard_map_unchecked(f, mesh, in_specs, out_specs):
+    """`jax.shard_map` with varying-mesh-axes checking off: the shard_maps
+    here run per-device programs (data-parallel batches, z-halo RL) whose
+    RL `while_loop` carries mix varying and unvarying values, which the
+    check would reject."""
     import jax
 
-    try:
-        from jax import shard_map as _sm
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map as _sm
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return _sm(f, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, **kw)
-        except TypeError:
-            continue
-    raise RuntimeError("no compatible shard_map signature")
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)

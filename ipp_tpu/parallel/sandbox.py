@@ -19,6 +19,8 @@ process mode for corrupt-prone ones.
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
+import sys
 from typing import Callable, Optional
 
 import numpy as np
@@ -28,7 +30,15 @@ __all__ = ["SandboxedReader"]
 
 def _sandbox_child(conn, reader: Optional[Callable]) -> None:
     """Worker loop: receive (path, frame), decode, send back the array.
-    Runs until the parent sends None or kills the process."""
+    Runs until the parent sends None or kills the process.
+
+    The child decodes on the host only: it pins JAX to the CPU before
+    anything could initialise a backend, so it never takes a share of the
+    parent's card (unpickling `reader` may already have imported jax,
+    hence the config update as well as the variable)."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
     if reader is None:
         from ipp_tpu.io import tiff as tio
 
@@ -71,7 +81,7 @@ class SandboxedReader:
 
     def __init__(self, reader: Optional[Callable] = None,
                  timeout: Optional[float] = 300.0):
-        # spawn (not fork): the parent holds JAX/TPU state and live
+        # spawn (not fork): the parent holds JAX/GPU state and live
         # threads that must not be inherited mid-flight
         self._ctx = mp.get_context("spawn")
         self._reader = reader

@@ -5,7 +5,7 @@ pycudadecon GPU RL, PSF from the LsDeconv optics model, padding to
 2,3,5,7-smooth FFT dims, optional destriping/gaussian, GPU semaphore
 queue.)
 
-Here: cubes stream through the batched TPU RL kernel; the PSF comes from
+Here: cubes stream through the batched RL kernel; the PSF comes from
 ipp_tpu.ops.psf.make_psf; FFT dims are already smooth via fft_shape_for.
 The reference surface carries over: --gaussian sigma (pre-filter, and —
 via --dg-iteration — re-applied every N RL iterations, its

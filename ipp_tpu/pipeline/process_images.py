@@ -376,10 +376,10 @@ def _merge_stage(
             # per-device local batches via shard_map: the destripe rfft
             # inside process_img cannot run on a jit-sharded operand
             # (XLA's FFT requires a dim0-major local layout)
-            from ..parallel.mesh import P, shard_map_compat
+            from ..parallel.mesh import P, shard_map_unchecked
 
             spec = P("data", None, None)
-            post_fn_device = jax.jit(shard_map_compat(
+            post_fn_device = jax.jit(shard_map_unchecked(
                 _dev_pimg, mesh, in_specs=spec, out_specs=spec))
         else:
             post_fn_device = jax.jit(_dev_pimg)
@@ -481,7 +481,7 @@ def mip_calibrate(input_dir: Path, channels: List[str], out_dir: Path,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native whole-brain stitching pipeline "
+        description="whole-brain stitching pipeline "
                     "(process_images equivalent)")
     p.add_argument("--input", "-i", required=True, type=Path,
                    help="raw data dir containing channel folders")
@@ -650,13 +650,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "--rgb-composite (reference flag, "
                         "process_images.py:1638-1640)")
     # GPU-scheduling knobs from the reference surface: accepted so
-    # reference launch scripts run unchanged; meaningless on TPU
+    # reference launch scripts run unchanged
     p.add_argument("--exclude_gpus", nargs="+", default=[],
-                   help="no-op on TPU (reference GPU-index exclusion, "
+                   help="accepted for the reference's scripts and ignored "
+                        "(reference GPU-index exclusion, "
                         "process_images.py:1718)")
     p.add_argument("--vram_mem_fraction_gpu0", type=float, default=1.0,
-                   help="no-op on TPU (reference GPU0 VRAM cap, "
-                        "process_images.py:1720)")
+                   help="accepted for the reference's scripts and ignored "
+                        "(reference GPU0 VRAM cap, process_images.py:1720)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--stitch-mip", "--stitch_mip", dest="stitch_mip",
                    action=argparse.BooleanOptionalAction, default=False,

@@ -3,8 +3,8 @@
 Every streaming loop in the pipelines (converter plane stream, tile
 executor, decon block loop, merge plane batches, FNT cubes) wants the
 same overlap: batch k's device->host copy streams back while batch k+1
-reads/uploads/dispatches, so the two link directions of a remote
-backend overlap instead of serializing.  The reference gets the same
+reads/uploads/dispatches, so the two transfer directions overlap
+instead of serializing.  The reference gets the same
 effect from process pools (pystripe/core.py:1687-1771) and its GPU
 semaphore workers (fnt_cube_processor.py:227-388); on a single
 controller the primitive is `copy_to_host_async` plus holding exactly

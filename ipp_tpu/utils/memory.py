@@ -5,7 +5,7 @@ worker polls `virtual_memory().available < needed` under a semaphore and
 sleeps before taking the next plane (free_ram_is_not_enough,
 parallel_image_processor.py:210-217), and the merge step sizes its
 worker pool from a bytes-per-thread model against available RAM
-(process_images.py:644-655).  The TPU build's single-controller loops
+(process_images.py:644-655).  This package's single-controller loops
 bound memory implicitly through bounded queues and one-batch-in-flight
 pipelines; this module adds the same EXPLICIT gate for hosts where other
 tenants eat the headroom mid-run.

@@ -1,67 +1,74 @@
-"""RL decon block-size sweep: does a bigger overlap-save block raise the
-CORE-voxel rate?  Same methodology as bench.py's decon stage (deep
-dispatch queue, scalar fetch, best-of-3 windows).
+"""RL decon block-size sweep: time per padded voxel and device bytes per
+voxel of 6-iteration Richardson-Lucy (the reference's optics PSF) at
+2,3,5,7-smooth block shapes.  Feeds the planner's cost model and memory
+budget (pipeline/deconvolve.py: _AXIS_PRIME_COST, _BLOCK_OVERHEAD_VOX,
+RL_BYTES_PER_VOXEL); the measured table is in PERF.md.
 
-Round-4 results on v5e (after the scoped-VMEM fix in ops/pallas_fft.py
-let the fused radix walk compile at ny=512) — the `_block_cost`
-calibration set (pipeline/deconvolve.py):
+    python scripts/blocksize_sweep.py [Z,Y,X ...]
 
-    (256, 256, 256): 40 ms/block  2.384 ns/vox  core 277.5 Mvox/s
-    (256, 512, 512): 165 ms       2.459 (1.03x) core 312.9
-    (256, 512, 768): 256 ms       2.540 (1.065x)core 309.5
-    (768, 256, 512): 265 ms       2.633 (1.104x)core 298.6
-    (384, 512, 512): 438 ms       4.350 (1.82x — non-256-multiple axis)
-    (512, 512, 256): 167 ms       2.489 (headline stage until 512^3)
-    (512, 512, 512): 324 ms       2.414 (1.013x — near-FLAT: big z
-                     batches the x/y radix walks) core 341.4 Mvox/s.
-                     Admitted by raising the default block budget to
-                     160 Mi-elems; now the planned production block
-                     for the reference volume (bench.py headline).
-    (256, 768, 768): 426 ms       2.825 (1.185x — the model predicted
-                     1.136: axis interactions err both ways, hence the
-                     `_MEASURED_RATIO` table in pipeline/deconvolve.py)
-
-Fused 256-multiple axes are per-voxel near-flat (small creep, steeper
-when the big axis sits in z); per-block dispatch overhead is ~0.
+Each shape runs in a fresh process, one after the other, so
+peak_bytes_in_use is that shape's own and a shape that does not fit costs
+only its own run.  The parent never imports JAX.
 """
+import os
+import subprocess
+import sys
 import time
 
-import numpy as np
+SHAPES = ["256,256,256", "512,512,512", "768,768,768", "640,1000,1000",
+          "768,1024,1024", "1000,1000,1000", "1024,1024,1024"]
 
-from ipp_tpu.utils.jaxconfig import enable_persistent_cache
 
-enable_persistent_cache()
-import jax.numpy as jnp
+def one(shape_arg: str) -> None:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
 
-from ipp_tpu.ops.deconv import richardson_lucy
-from ipp_tpu.ops.psf import gaussian_psf
+    from ipp_tpu.ops import deconv as dc
+    from ipp_tpu.ops.psf import make_psf
+    from ipp_tpu.utils.jaxconfig import enable_persistent_cache
 
-rng = np.random.default_rng(0)
-psf = jnp.asarray(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0)))
-halo = 16
-niter = 10
-
-for shape, reps in [((256, 256, 256), 15), ((256, 512, 512), 5),
-                    ((512, 512, 256), 5), ((384, 512, 512), 4),
-                    ((256, 512, 768), 4), ((768, 256, 512), 4),
-                    ((512, 512, 512), 4), ((256, 768, 768), 4)]:
-    vol = jnp.asarray(rng.random(shape, dtype=np.float32) * 1000.0)
-    core = np.prod([s - 2 * halo for s in shape])
-
-    def run_many(r):
-        acc = jnp.float32(0)
-        for _ in range(r):
-            acc = acc + jnp.sum(richardson_lucy(
-                vol, psf, niter=niter, stop_criterion=0.0, fft_shape=shape))
-        return float(acc)
-
-    t0 = time.time(); run_many(1); comp = time.time() - t0
-    run_many(reps)
+    enable_persistent_cache()
+    shape = tuple(int(v) for v in shape_arg.split(","))
+    psf_xyz, _, _ = make_psf(dxy=406.0, dz=800.0, NA=0.4, n=1.45,
+                             lambda_ex=488.0, lambda_em=525.0,
+                             fcyl=80000.0, slitwidth=12000.0)
+    psf = jnp.asarray(np.transpose(psf_xyz, (2, 1, 0)), jnp.float32)
+    vol = jax.random.uniform(jax.random.key(0), shape, jnp.float32,
+                             100.0, 1100.0)
+    kw = dict(niter=6, fft_shape=shape, lam=0.0, stop_criterion=0.0,
+              regularize_interval=0, edge_taper=True, classic=True,
+              sharding=None)
+    t0 = time.perf_counter()
+    compiled = dc._rl_single.lower(vol, psf, **kw).compile()
+    t_compile = time.perf_counter() - t0
+    ma = compiled.memory_analysis()
+    jax.block_until_ready(compiled(vol, psf))
     best = float("inf")
     for _ in range(3):
-        t0 = time.time(); run_many(reps)
-        best = min(best, (time.time() - t0) / reps)
-    print(f"{shape}: compile {comp:.0f}s, {best*1e3:.0f} ms/block, "
-          f"core {core/best/1e6:.1f} Mvox/s, "
-          f"padded {np.prod(shape)/best/1e6:.1f} Mvox/s "
-          f"({best/np.prod(shape)*1e9:.3f} ns/vox)", flush=True)
+        t0 = time.perf_counter()
+        jax.block_until_ready(compiled(vol, psf))
+        best = min(best, time.perf_counter() - t0)
+    n = float(np.prod(shape))
+    stats = jax.devices()[0].memory_stats() or {}
+    peak = stats.get("peak_bytes_in_use", 0)
+    print(f"{shape}: compile {t_compile:.1f} s, {best * 1e3:.2f} ms/block, "
+          f"{best / n * 1e9:.4f} ns/vox, temp "
+          f"{ma.temp_size_in_bytes / n:.1f} B/vox, peak_bytes_in_use "
+          f"{peak / n:.1f} B/vox", flush=True)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        one(sys.argv[2])
+        sys.exit(0)
+    bad = 0
+    for shape in sys.argv[1:] or SHAPES:
+        r = subprocess.run([sys.executable, __file__, "--one", shape])
+        if r.returncode:
+            print(f"({shape}): failed with exit code {r.returncode}",
+                  flush=True)
+            bad += 1
+    sys.exit(1 if bad else 0)

@@ -171,55 +171,6 @@ def test_make_psf_small():
     np.testing.assert_allclose(psf, psf[:, :, ::-1], atol=1e-7)
 
 
-def test_matmul_fft_matches_numpy(rng):
-    """MXU matmul rfftn/irfftn (ops/mxu_fft.py) vs numpy.fft."""
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-
-    shape = (16, 24, 40)
-    x = rng.random(shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    plan = MatmulFFT3(shape)
-    re, im = plan.rfftn(x)
-    ref = np.fft.rfftn(x)
-    np.testing.assert_allclose(np.asarray(re), ref.real, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(im), ref.imag, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(plan.irfftn(re, im)), x, atol=1e-5)
-    conv = np.asarray(plan.convolve(x, plan.otf_packed(k)))
-    ref_conv = np.fft.irfftn(np.fft.rfftn(k) * np.fft.rfftn(x),
-                             s=shape, axes=(0, 1, 2))
-    rel = np.abs(conv - ref_conv).max() / np.abs(ref_conv).max()
-    assert rel < 1e-5, rel
-
-
-def test_rl_mxu_backend_matches_xla(rng, monkeypatch):
-    """richardson_lucy on the MXU matmul-FFT backend equals the XLA-FFT
-    backend (the TPU production path, forced here on CPU)."""
-    from ipp_tpu.ops import deconv as dc
-    from ipp_tpu.ops.psf import gaussian_psf
-
-    vol = (rng.random((24, 28, 32)) * 1000).astype(np.float32)
-    psf = np.asarray(gaussian_psf((5, 5, 5), (1.0, 1.0, 1.0)))
-
-    monkeypatch.setattr(dc, "_RESOLVED_FFT", "xla")
-    shape_x = dc.fft_shape_for(vol.shape, psf.shape)
-    a = np.asarray(dc.richardson_lucy(vol, psf, niter=4, fft_shape=shape_x))
-    b_batched_x = np.asarray(dc.richardson_lucy_batched(
-        vol[None], psf, niter=4, fft_shape=shape_x))[0]
-
-    monkeypatch.setattr(dc, "_RESOLVED_FFT", "mxu")
-    shape_m = dc.fft_shape_for(vol.shape, psf.shape)
-    b = np.asarray(dc.richardson_lucy(vol, psf, niter=4, fft_shape=shape_m))
-    c = np.asarray(dc.richardson_lucy_batched(
-        vol[None], psf, niter=4, fft_shape=shape_m))[0]
-
-    # different pad shapes -> tiny boundary differences; interior matches
-    inner = (slice(4, -4),) * 3
-    np.testing.assert_allclose(b[inner], a[inner], rtol=2e-3, atol=2e-1)
-    np.testing.assert_allclose(c[inner], b[inner], rtol=1e-4, atol=1e-2)
-    np.testing.assert_allclose(b_batched_x[inner], a[inner],
-                               rtol=1e-4, atol=1e-2)
-
-
 def test_edge_taper_face_slabs_match_full_blur(rng):
     """The face-slab edge taper equals the naive full-volume formula
     mask*vol + (1-mask)*blur(vol) (reference edgetaper_3d.m)."""
@@ -244,28 +195,6 @@ def test_edge_taper_face_slabs_match_full_blur(rng):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0.05)
 
 
-def test_pallas_fused_cplx_matmul_interpret(rng):
-    """Pallas fused Karatsuba complex product == the XLA decomposition
-    (interpret mode so it runs on CPU)."""
-    import jax.numpy as jnp
-
-    from ipp_tpu.ops.mxu_fft import _dft_mats
-    from ipp_tpu.ops.pallas_fft import fused_cplx_matmul
-
-    n = 40
-    re = jnp.asarray(rng.random((6, 8, n)).astype(np.float32))
-    im = jnp.asarray(rng.random((6, 8, n)).astype(np.float32))
-    mr, mi = (jnp.asarray(m) for m in _dft_mats(n))
-    mats = (mr, mi, mr + mi)
-    rr, ii = fused_cplx_matmul(re, im, mats, interpret=True)
-    t1 = np.asarray(re) @ np.asarray(mr)
-    t2 = np.asarray(im) @ np.asarray(mi)
-    t3 = (np.asarray(re) + np.asarray(im)) @ np.asarray(mr + mi)
-    np.testing.assert_allclose(np.asarray(rr), t1 - t2, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ii), t3 - t1 - t2,
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_rl_overlap_save_core_matches_padded(rng):
     """Overlap-save RL (fft shape == block shape, wraparound absorbed by
     the halo) matches zero-padded RL on the core — the production block
@@ -283,135 +212,3 @@ def test_rl_overlap_save_core_matches_padded(rng):
     sl = (slice(h, -h),) * 3
     nrmse = (np.linalg.norm(a[sl] - b[sl]) / np.linalg.norm(b[sl]))
     assert nrmse < 1e-3, nrmse
-
-
-def test_radix_convolve_matches_dense(rng, monkeypatch):
-    """The Cooley-Tukey radix-split convolve path (IPP_TPU_FFT_RADIX=1,
-    twiddle-folded matrices, permuted spectra) is numerically identical to
-    the dense path."""
-    import jax
-
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3, pick_radix
-
-    monkeypatch.setenv("IPP_TPU_FFT_RADIX", "1")
-    assert pick_radix(256) == 2
-    assert pick_radix(264) == 3
-    assert pick_radix(40) == 1
-    shape = (12, 132, 40)  # y=132 -> radix 2; z/x dense
-    assert pick_radix(132) == 2
-    x = rng.random(shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-    conv = np.asarray(plan.convolve(x, plan.otf_packed(k)))
-    ref = np.fft.irfftn(np.fft.rfftn(k) * np.fft.rfftn(x), s=shape,
-                        axes=(0, 1, 2))
-    rel = np.abs(conv - ref).max() / np.abs(ref).max()
-    assert rel < 1e-5, rel
-
-
-def test_fused_stage_kernel_convolve(rng, monkeypatch):
-    """The Pallas fused radix-2 stage kernel path (interpret mode on CPU)
-    equals numpy FFT convolution, including conjugate and batched calls."""
-    import jax
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("IPP_TPU_FFT_KERNEL", "1")
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-
-    shape = (256, 256, 16)
-    x = rng.random(shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-    assert sorted(plan._kern.keys()) == [256]
-    otf = plan.otf_packed(jnp.asarray(k))
-    conv = np.asarray(plan.convolve(jnp.asarray(x), otf))
-    ref = np.fft.irfftn(np.fft.rfftn(k) * np.fft.rfftn(x), s=shape,
-                        axes=(0, 1, 2))
-    assert np.abs(conv - ref).max() / np.abs(ref).max() < 1e-4
-    convc = np.asarray(plan.convolve(jnp.asarray(x), otf, conj=True))
-    refc = np.fft.irfftn(np.conj(np.fft.rfftn(k)) * np.fft.rfftn(x),
-                         s=shape, axes=(0, 1, 2))
-    assert np.abs(convc - refc).max() / np.abs(refc).max() < 1e-4
-
-
-def test_v2_t_walk_matches_untransposed(rng, monkeypatch):
-    """The axis-1-stacking ('t') rfft/irfft kernels (kp-major layout, no
-    swapaxes pair) must produce the same convolution as the v2 walk with
-    the XLA transposes, including the fused RL ratio/mul forms."""
-    import jax
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("IPP_TPU_FFT_V2", "1")
-    from ipp_tpu.ops import pallas_fft
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-
-    shape = (256, 16, 256)
-    x = (rng.random(shape) * 100 + 1).astype(np.float32)
-    num = (rng.random(shape) * 100 + 1).astype(np.float32)
-    mul = rng.random(shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-
-    outs = {}
-    for flag in ("1", "0"):
-        monkeypatch.setenv("IPP_TPU_FFT_V2T", flag)
-        plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-        assert plan._v2 is not None and plan._v2["t"] == (flag == "1")
-        otf = plan.otf_packed(jnp.asarray(k))
-        outs[flag] = (
-            np.asarray(plan.convolve(jnp.asarray(x), otf)),
-            np.asarray(plan.convolve(
-                jnp.asarray(x), otf, conj=True,
-                ratio_num=jnp.asarray(num), mul_abs=jnp.asarray(mul))),
-        )
-    for a, b in zip(outs["1"], outs["0"]):
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
-
-
-def test_v2_convolve_768_axis(rng, monkeypatch):
-    """Non-power-of-2 256-multiple axes (768 = 3*256) through the v2
-    walk: autosplit's recalibrated cost model (round 4) plans such
-    blocks in production — e.g. (256, 512, 768) for a 512x2048x2048
-    volume — so the mixed radix-2 + odd-base stage plan must equal
-    numpy FFT convolution (reference whole-block FFT: LsDeconv.m decon
-    path)."""
-    import jax
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("IPP_TPU_FFT_V2", "1")
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-
-    shape = (256, 8, 768)
-    x = (rng.random(shape) * 100 + 1).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-    assert plan._v2 is not None
-    otf = plan.otf_packed(jnp.asarray(k))
-    conv = np.asarray(plan.convolve(jnp.asarray(x), otf))
-    ref = np.fft.irfftn(np.fft.rfftn(k) * np.fft.rfftn(x), s=shape,
-                        axes=(0, 1, 2))
-    assert np.abs(conv - ref).max() / np.abs(ref).max() < 1e-4
-
-
-def test_v2_convolve_matches_numpy(rng, monkeypatch):
-    """The v2 near-transpose-free convolve walk (sublane-form Pallas
-    kernels, interpret mode on CPU) equals numpy FFT convolution."""
-    import jax
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("IPP_TPU_FFT_V2", "1")
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-
-    shape = (256, 16, 256)
-    x = rng.random(shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-    assert plan._v2 is not None
-    otf = plan.otf_packed(jnp.asarray(k))
-    conv = np.asarray(plan.convolve(jnp.asarray(x), otf))
-    ref = np.fft.irfftn(np.fft.rfftn(k) * np.fft.rfftn(x), s=shape,
-                        axes=(0, 1, 2))
-    assert np.abs(conv - ref).max() / np.abs(ref).max() < 1e-4
-    convc = np.asarray(plan.convolve(jnp.asarray(x), otf, conj=True))
-    refc = np.fft.irfftn(np.conj(np.fft.rfftn(k)) * np.fft.rfftn(x),
-                         s=shape, axes=(0, 1, 2))
-    assert np.abs(convc - refc).max() / np.abs(refc).max() < 1e-4

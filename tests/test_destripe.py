@@ -97,6 +97,7 @@ def test_dual_band_sigma1_zero_uses_unclipped_foreground(rng):
     """When sigma1 == 0 the foreground band is the UNCLIPPED image
     (reference filter_streak_dual_band, pystripe/core.py:953-958);
     round-1 clipped it at the threshold (ADVICE)."""
+    import jax
     import jax.numpy as jnp
 
     from ipp_tpu.ops.destripe import (_plan_padding, filter_subband,
@@ -110,21 +111,25 @@ def test_dual_band_sigma1_zero_uses_unclipped_foreground(rng):
         crossover=crossover, use_thresholding=True,
         log1p_normalization_needed=False))
 
-    # expected: reference formula with fg = x (unclipped)
-    x = jnp.asarray(img)
+    # expected: reference formula with fg = x (unclipped), compiled as
+    # one program like filter_streaks so both sides round alike
     base_pad, (py, px), _, lv = _plan_padding(
         img.shape, (0.0, sigma2), 0, wavelet)
-    xp = jnp.pad(x, [(base_pad, base_pad + py), (base_pad, base_pad + px)],
-                 mode="wrap")
-    bg = filter_subband(jnp.clip(xp, None, threshold), sigma2, lv, wavelet,
-                        axes=(-1,))
-    # smoothing=0: the reference's shipped foreground mask is unsmoothed
-    # (GaussianBlur return discarded, pystripe/core.py:600)
-    frac = foreground_fraction(xp, jnp.float32(threshold), crossover,
-                               smoothing=0)
-    blended = (xp * frac + bg * (1.0 - frac)) * threshold
-    expected = np.asarray(blended[base_pad:base_pad + 64 + 0,
-                                  base_pad:base_pad + 64])
+
+    @jax.jit
+    def reference(x):
+        xp = jnp.pad(x, [(base_pad, base_pad + py),
+                         (base_pad, base_pad + px)], mode="wrap")
+        bg = filter_subband(jnp.clip(xp, None, threshold), sigma2, lv,
+                            wavelet, axes=(-1,))
+        # smoothing=0: the reference's shipped foreground mask is
+        # unsmoothed (GaussianBlur return discarded, pystripe/core.py:600)
+        frac = foreground_fraction(xp, jnp.float32(threshold), crossover,
+                                   smoothing=0)
+        blended = (xp * frac + bg * (1.0 - frac)) * threshold
+        return blended[base_pad:base_pad + 64, base_pad:base_pad + 64]
+
+    expected = np.asarray(reference(jnp.asarray(img)))
     np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-3)
 
 
@@ -139,36 +144,22 @@ def test_dual_band_nonpositive_threshold_routes_single_band(rng):
     np.testing.assert_array_equal(got, single)
 
 
-def test_notch_matmul_backend_matches_fft(rng, monkeypatch):
-    """The circulant-matmul notch (TPU fast path) equals the rfft/irfft
-    form: K = F_r^H diag(g) F_r is the exact circulant of the same
-    filter, so any difference is matmul rounding."""
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_notch_matches_float64_circulant(rng, axis):
+    """The rfft notch equals a float64 numpy circular convolution with the
+    notch's impulse response (the same filter written as a circulant
+    matrix): the sigma/2 complex-bin notch of filter_coefficient."""
     import jax.numpy as jnp
 
     coef = rng.standard_normal((3, 96, 160)).astype(np.float32)
-    for axis in (-1, -2):
-        width_frac = 0.4
-        monkeypatch.setattr(ds, "_NOTCH_BACKEND", "fft")
-        ref = np.asarray(ds.filter_coefficient(jnp.asarray(coef), width_frac, axis=axis))
-        monkeypatch.setattr(ds, "_NOTCH_BACKEND", "matmul")
-        out = np.asarray(ds.filter_coefficient(jnp.asarray(coef), width_frac, axis=axis))
-        np.testing.assert_allclose(out, ref, atol=5e-5)
-
-
-def test_filter_streaks_matmul_notch_end_to_end(rng, monkeypatch):
-    """Full destripe chain with the matmul notch stays within the golden
-    interior tolerance of the fft-notch chain."""
-    img, _ = make_striped_tile(rng)
-    # the backend switch is not part of the jit cache key: clear between
-    # runs so the second call really retraces with the matmul notch
-    monkeypatch.setattr(ds, "_NOTCH_BACKEND", "fft")
-    ds._filter_streaks_impl.clear_cache()
-    ref = np.asarray(ds.filter_streaks(img, sigma=(64, 64), wavelet="db9"))
-    monkeypatch.setattr(ds, "_NOTCH_BACKEND", "matmul")
-    ds._filter_streaks_impl.clear_cache()
-    out = np.asarray(ds.filter_streaks(img, sigma=(64, 64), wavelet="db9"))
-    ds._filter_streaks_impl.clear_cache()
-    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
-    # u16 outputs: rounding may flip the last bit on a few pixels
-    assert diff.max() <= 1, diff.max()
-    assert (diff > 0).mean() < 0.01
+    width_frac = 0.4
+    out = np.asarray(ds.filter_coefficient(jnp.asarray(coef), width_frac,
+                                           axis=axis))
+    n = coef.shape[axis]
+    sigma = coef.shape[-2 if axis == -1 else -1] * width_frac
+    g = ds.notch(n // 2 + 1, 0.5 * sigma).astype(np.float64)
+    col = np.fft.irfft(g, n=n)
+    K = col[(np.arange(n)[None, :] - np.arange(n)[:, None]) % n]
+    ref = np.moveaxis(np.moveaxis(coef.astype(np.float64), axis, -1) @ K,
+                      -1, axis)
+    np.testing.assert_allclose(out, ref, atol=5e-5)

@@ -30,7 +30,7 @@ CH = "Ex_488_Em_525"
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{REPO}:{env.get('PYTHONPATH', '')}"
-    env["IPP_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["IPP_TPU_PROGRESS"] = "off"
     return env
 

@@ -32,9 +32,11 @@ PARAMS = dict(NA=0.4, n=1.42, lambda_ex=488.0, lambda_em=525.0,
 
 @pytest.fixture(scope="module")
 def ref_psf_gen():
+    path = REF / "LsDeconvolveMultiGPU" / "psf_generator.py"
+    if not path.exists():
+        pytest.skip(f"reference {path} unavailable")
     install_shims()
-    spec = importlib.util.spec_from_file_location(
-        "ref_psf_generator", REF / "LsDeconvolveMultiGPU" / "psf_generator.py")
+    spec = importlib.util.spec_from_file_location("ref_psf_generator", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

@@ -80,8 +80,10 @@ def test_raw_golden_cross_roundtrip(tmp_path, rng):
 
     from tests.refshims import REF
 
-    spec = importlib.util.spec_from_file_location(
-        "ref_raw", REF / "pystripe" / "raw.py")
+    path = REF / "pystripe" / "raw.py"
+    if not path.exists():
+        pytest.skip(f"reference {path} unavailable")
+    spec = importlib.util.spec_from_file_location("ref_raw", path)
     ref_raw = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref_raw)
     from ipp_tpu.io import raw as our_raw

@@ -33,12 +33,9 @@ def test_ncc_map_matches_reference_formula(rng):
 
 
 def test_ncc_production_mip_shape_regression(rng):
-    """Crash-regression marker: production-scale MIPs ((12, 150, 1024),
-    search 26) crashed the v5e TPU runtime via the fused 2D
-    advanced-index gathers inside ncc_maps_batched (round 5, bisected
-    on-chip); the fix is separable row/col takes.  CPU cannot reproduce
-    the fault, so this pins (a) the exact shape keeps running and (b)
-    the take-based map still matches the reference formula there."""
+    """Production-scale MIPs ((12, 150, 1024), search 26) through the
+    separable row/col takes of ncc_maps_batched: the exact shape keeps
+    running and the map still matches the reference formula there."""
     m1 = rng.random((12, 150, 1024), dtype=np.float32) * 100
     m2 = np.roll(m1, (4, -6), axis=(1, 2)).astype(np.float32)
     out = np.asarray(nccmod.ncc_maps_batched(m1, m2, 26, 26))

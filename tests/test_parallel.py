@@ -365,49 +365,6 @@ def test_distributed_helpers_single_process():
     np.testing.assert_array_equal(np.asarray(out), arr)
 
 
-def test_pallas_kernels_inside_shard_map_trace_first(rng, monkeypatch):
-    """The production mesh path traces the Pallas FFT kernels INSIDE
-    shard_map.  Two hazards regression-tested here: newer JAX rejects
-    pallas_call outputs in a vma-checked shard_map (shard_map_compat
-    disables the check), and the lru_cached kernel matrices must be
-    numpy — a first call inside a trace would otherwise poison the cache
-    with leaked tracers for every later call."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import Mesh, PartitionSpec as P
-
-    monkeypatch.setenv("IPP_TPU_FFT_V2", "1")
-    monkeypatch.setenv("IPP_TPU_FFT_KERNEL", "1")
-    from ipp_tpu.ops import pallas_fft
-    from ipp_tpu.ops.mxu_fft import MatmulFFT3
-    from ipp_tpu.parallel.mesh import shard_map_compat
-
-    # cold caches: the FIRST construction happens inside the traced fn
-    pallas_fft.prep_stage_mats.cache_clear()
-    pallas_fft.prep_v2_rfft_mats.cache_clear()
-    pallas_fft.prep_v2_stage_mats.cache_clear()
-
-    shape = (256, 16, 256)
-    x = rng.random((1,) + shape).astype(np.float32)
-    k = rng.random(shape).astype(np.float32)
-    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
-    spec = P("data", None, None, None)
-
-    def local(blocks):
-        plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-        otf = plan.otf_packed(jnp.asarray(k))
-        return jax.lax.map(lambda b: plan.convolve(b, otf), blocks)
-
-    step = jax.jit(shard_map_compat(local, mesh=mesh, in_specs=spec,
-                                    out_specs=spec))
-    out = np.asarray(step(jnp.asarray(x)))
-    # cache must now hold reusable constants for an UNTRACED call too
-    plan = MatmulFFT3(shape, precision=jax.lax.Precision.HIGHEST)
-    ref = np.asarray(plan.convolve(jnp.asarray(x[0]),
-                                   plan.otf_packed(jnp.asarray(k))))
-    np.testing.assert_allclose(out[0], ref, rtol=1e-5, atol=1e-4)
-
-
 def test_progress_modes(monkeypatch):
     """IPP_TPU_PROGRESS=off silences the bar; =log emits newline lines
     (the reference --noprogressbar/--logprogress pair)."""
@@ -499,3 +456,23 @@ def test_ram_admission_gate(monkeypatch):
     assert memory.workers_for_ram(0.1 * 2**30, 4) == 4
     monkeypatch.setattr(memory, "available_ram_bytes", lambda: None)
     assert memory.workers_for_ram(2**30, 8) == 8  # unknown: trust caller
+
+
+def _platform_reader(path):
+    """Picklable shim codec: returns the JAX platform the sandbox worker
+    computes on, as bytes."""
+    import jax
+
+    return np.frombuffer(jax.devices()[0].platform.encode(), np.uint8)
+
+
+def test_sandbox_worker_stays_off_the_gpu(tmp_path, monkeypatch):
+    """A decode worker never opens the parent's card: even when the parent
+    environment asks for CUDA, the worker's JAX runs on the CPU (a second
+    process on a card would fail for want of the memory the parent
+    reserved)."""
+    from ipp_tpu.parallel.sandbox import SandboxedReader
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    with SandboxedReader(reader=_platform_reader, timeout=120.0) as sb:
+        assert bytes(sb.read(tmp_path / "unused.tif")).decode() == "cpu"

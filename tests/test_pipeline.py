@@ -95,23 +95,26 @@ def test_autosplit_halo_and_coverage():
     assert (seen == 1).all()
 
 
+# bytes_limit JAX reports for one 80 GB H100 at the default 0.75 memory
+# fraction
+H100_BYTES_LIMIT = 63763120128
+
+
 def test_autosplit_production_plan_is_measured_512_cube():
     """The reference benchmark volume (835.7 Gvox,
-    LsDeconvolveMultiGPU/README.md:58-61) must plan the on-chip-measured
-    best block: (512,512,512) at 2.414 ns/vox beats every other measured
-    shape per CORE voxel (scripts/blocksize_sweep.py round-4 table), and
-    the default budget admits it.  Guards the `_MEASURED_RATIO`
-    calibration against model drift re-flipping the plan."""
-    from ipp_tpu.pipeline.deconvolve import _MEASURED_RATIO, autosplit
+    LsDeconvolveMultiGPU/README.md:58-61) with the reference's optics PSF
+    on one 80 GB H100 plans the block the measured cost model ranks best:
+    radix-2/5 axes only (the sweep's fastest per voxel), 0.8 Gvox, inside
+    the memory budget.  Guards the cost model against drift re-flipping
+    the plan."""
+    from ipp_tpu.pipeline.deconvolve import RL_BYTES_PER_VOXEL, autosplit
 
-    plans, halo, planned = autosplit((7912, 12778, 8266), (9, 9, 9))
-    assert planned == (512, 512, 512)
-    assert halo == (16, 16, 16)
-    assert len(plans) == 8262
-    # every measured 256-multiple shape must rank by its table entry,
-    # and the planner must never silently prefer an unmeasured shape
-    # over 512^3 for this volume (the table is the evidence base)
-    assert planned in _MEASURED_RATIO
+    plans, halo, planned = autosplit((7912, 12778, 8266), (13, 9, 9),
+                                     bytes_limit=H100_BYTES_LIMIT)
+    assert planned == (625, 1024, 1250)
+    assert halo == (24, 16, 16)
+    assert len(plans) == 1274
+    assert np.prod(planned) * RL_BYTES_PER_VOXEL <= H100_BYTES_LIMIT
 
 
 def test_autosplit_strict_accuracy_gate():
@@ -1015,3 +1018,51 @@ def test_align_images_cli_mismatched_shapes(tmp_path, rng):
     rgb = sorted((out / "downsampled" / "RGB").glob("img_*.tif"))
     assert len(rgb) == 12  # trimmed back to the reference channel depth
     assert tio.imread(rgb[0]).shape == (64, 64, 3)
+
+
+def _smooth(n):
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+@pytest.mark.parametrize("vol_shape", [(7912, 12778, 8266),
+                                       (256, 2048, 2048), (97, 301, 1999)])
+def test_autosplit_smooth_axes_tile_exactly(vol_shape):
+    """Planned and work shapes are 2,3,5,7-smooth FFT sizes no larger than
+    the reference's MAX_BLOCK_DIM, and the cores tile the volume exactly
+    (each axis an interval chain from 0 to its extent)."""
+    from ipp_tpu.pipeline.deconvolve import (MAX_BLOCK_DIM, autosplit,
+                                             fft_work_shape)
+
+    plans, halo, planned = autosplit(vol_shape, (13, 9, 9),
+                                     bytes_limit=H100_BYTES_LIMIT)
+    work = fft_work_shape(plans, halo)
+    for p, w in zip(planned, work):
+        assert _smooth(p) and _smooth(w) and w <= p <= MAX_BLOCK_DIM
+    for ax in range(3):
+        ivs = sorted({p.core[ax] for p in plans})
+        assert ivs[0][0] == 0 and ivs[-1][1] == vol_shape[ax]
+        assert all(a[1] == b[0] for a, b in zip(ivs, ivs[1:]))
+        # every core plus its halos fits the work shape
+        assert max(hi - lo for lo, hi in ivs) + 2 * halo[ax] <= work[ax]
+    n_grid = np.prod([len({p.core[ax] for p in plans}) for ax in range(3)])
+    assert len(plans) == n_grid
+
+
+@pytest.mark.parametrize("bytes_limit", [16 * 2 ** 30, 4 * 2 ** 30])
+def test_autosplit_respects_bytes_limit(bytes_limit):
+    """The default block budget is the device's bytes_limit over the RL
+    working set: the planned block's working set fits the limit, and a
+    smaller limit plans smaller blocks."""
+    from ipp_tpu.pipeline.deconvolve import (RL_BYTES_PER_VOXEL, autosplit,
+                                             default_block_elems)
+
+    assert default_block_elems(bytes_limit) == bytes_limit // RL_BYTES_PER_VOXEL
+    _, _, planned = autosplit((7912, 12778, 8266), (13, 9, 9),
+                              bytes_limit=bytes_limit)
+    assert np.prod(planned) * RL_BYTES_PER_VOXEL <= bytes_limit
+    _, _, bigger = autosplit((7912, 12778, 8266), (13, 9, 9),
+                             bytes_limit=4 * bytes_limit)
+    assert np.prod(planned) < np.prod(bigger)

@@ -59,8 +59,8 @@ def _args(raw, tmp_path):
 def _run(mod_args, cache_dir, timeout=900):
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{REPO}:{env.get('PYTHONPATH', '')}"
-    env["IPP_TPU_PLATFORM"] = "cpu"
-    env["IPP_TPU_XLA_CACHE"] = str(cache_dir)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["JAX_COMPILATION_CACHE_DIR"] = str(cache_dir)
     env["IPP_TPU_XLA_CACHE_MIN_COMPILE"] = "0"
     env["IPP_TPU_PROGRESS"] = "off"
     r = subprocess.run([sys.executable, "-m"] + mod_args, env=env,
